@@ -14,7 +14,7 @@
  * into `out` (capacity `cap` doubles).  Returns the number of values
  * parsed, or -1 on open failure, or -(needed) if `cap` was too small
  * (call again with a bigger buffer). */
-long tpuhc_parse_floats(const char *path, double *out, long cap) {
+long fastio_parse_floats(const char *path, double *out, long cap) {
     FILE *f = fopen(path, "rb");
     if (!f) return -1;
     fseek(f, 0, SEEK_END);

@@ -53,13 +53,13 @@ def main() -> int:
     cfg = dataclasses.replace(
         # predictor_handoff off: the CPH condition is per-shard in the
         # distributed program but batch-wide in the single-chip oracle.
-        cfg, hc=dataclasses.replace(cfg.hc, max_steps=3, backend="xla",
+        cfg, hc=dataclasses.replace(cfg.hc, max_steps=3,
                                     predictor_handoff=False)
     )
     problem = TrifocalProblem.load(cfg)
     mesh = pmesh.make_mesh()  # all 8 global devices
     assert mesh.devices.size == 4 * nproc
-    track = pmesh.make_sharded_track_fn(problem, cfg.hc, mesh, backend="xla")
+    track = pmesh.make_sharded_track_fn(problem, cfg.hc, mesh)
 
     # Tiny deterministic workload, identical on every process: 8 hypotheses
     # x 312 tracks; each process contributes its hypothesis half as the
@@ -90,11 +90,12 @@ def main() -> int:
         for a in (x0.real, x0.imag, tgt_b.real, tgt_b.imag,
                   diff_b.real, diff_b.imag)
     ]
-    out = track.jitted(*planes)
+    out = track.jitted(*planes, np.full((8, 6), 1e3, f32),
+                       np.eye(3, dtype=f32), f32(8))
     local = [
         multihost_utils.global_array_to_host_local_array(
             o, mesh, P("hyp")
-        ) for o in out
+        ) for o in out[:6]
     ]
     local = [np.asarray(a) for a in local]
 

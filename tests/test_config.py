@@ -1,73 +1,8 @@
-"""Config-tier tests: env overrides used by the TPU measurement campaign."""
+"""Config-tier tests: the reference YAML keys and the compile-cache rule."""
 
-import dataclasses
+import pytest
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
-    HCConfig,
-)
-
-
-def test_eval_structure_env_override(monkeypatch):
-    """TPUHC_EVAL_STRUCTURE overrides the default eval_structure.
-
-    Campaign tooling (tools/reconcile_stats.py, bench.py) A/Bs evaluator
-    structures through this env var without touching code; explicit
-    construction and dataclasses.replace must still win over it.
-    """
-    assert HCConfig().eval_structure == "classic"
-    monkeypatch.setenv("TPUHC_EVAL_STRUCTURE", "gathered")
-    assert HCConfig().eval_structure == "gathered"
-    assert HCConfig(eval_structure="merged").eval_structure == "merged"
-    h = dataclasses.replace(HCConfig(), tile=256)
-    assert h.eval_structure == "gathered"  # replace re-reads nothing
-    monkeypatch.delenv("TPUHC_EVAL_STRUCTURE")
-    assert HCConfig().eval_structure == "classic"
-
-
-def test_cjr_and_solver_env_overrides(monkeypatch):
-    """TPUHC_CJR / TPUHC_SOLVER select the modified-Newton corrector
-    (freeze after k full iterations; 0 = off) and the solve machinery
-    for campaign A/Bs without code edits."""
-    assert HCConfig().corrector_jacobian_reuse == 0
-    assert HCConfig().solver == "reduced"
-    monkeypatch.setenv("TPUHC_CJR", "2")
-    monkeypatch.setenv("TPUHC_SOLVER", "schedule")
-    assert HCConfig().corrector_jacobian_reuse == 2
-    assert HCConfig().solver == "schedule"
-    assert HCConfig(corrector_jacobian_reuse=0,
-                    solver="reduced").solver == "reduced"
-    monkeypatch.delenv("TPUHC_CJR")
-    monkeypatch.delenv("TPUHC_SOLVER")
-    assert HCConfig().corrector_jacobian_reuse == 0
-
-
-def test_segment_and_precision_env_overrides(monkeypatch):
-    """TPUHC_SEGMENT_STEPS / TPUHC_EVAL_PRECISION: campaign knobs for the
-    segment-length retune and the split-matmul mode.  split3k is the
-    shipped default since campaign 13 (see HCConfig.eval_precision)."""
-    assert HCConfig().segment_steps == 8
-    assert HCConfig().eval_precision == "split3k"
-    monkeypatch.setenv("TPUHC_SEGMENT_STEPS", "12")
-    monkeypatch.setenv("TPUHC_EVAL_PRECISION", "split3")
-    assert HCConfig().segment_steps == 12
-    assert HCConfig().eval_precision == "split3"
-    assert HCConfig(segment_steps=4).segment_steps == 4
-    monkeypatch.delenv("TPUHC_SEGMENT_STEPS")
-    monkeypatch.delenv("TPUHC_EVAL_PRECISION")
-    assert HCConfig().segment_steps == 8
-
-
-def test_tile_env_override(monkeypatch):
-    """TPUHC_TILE: bench-level tile A/Bs without code edits.  Tile size is
-    timing-only (whole-tile early exit / tile-wide corrector skip freeze
-    done lanes, never change per-path results), so campaigns A/B it on
-    bench arms alone."""
-    assert HCConfig().tile == 128
-    monkeypatch.setenv("TPUHC_TILE", "64")
-    assert HCConfig().tile == 64
-    assert HCConfig(tile=256).tile == 256
-    monkeypatch.delenv("TPUHC_TILE")
-    assert HCConfig().tile == 128
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import runtime
 
 
 def test_num_of_cores_yaml_key(tmp_path):
@@ -84,3 +19,30 @@ def test_num_of_cores_yaml_key(tmp_path):
     assert cfg.num_cpu_cores == 12
     p.write_text("%YAML:1.0\nNum_Of_Vars: 30\n")
     assert load_problem_yaml(str(p)).num_cpu_cores is None
+
+
+@pytest.mark.parametrize("environ, expected", [
+    ({}, runtime.DEFAULT_CACHE_DIR),
+    ({"JAX_COMPILATION_CACHE_DIR": ""}, runtime.DEFAULT_CACHE_DIR),
+    ({"JAX_COMPILATION_CACHE_DIR": "/elsewhere"}, None),
+])
+def test_compile_cache_dir_rule(environ, expected):
+    """A set JAX_COMPILATION_CACHE_DIR wins and the code sets no other
+    path; otherwise the cache sits at one fixed path in the checkout."""
+    assert runtime.compile_cache_dir(environ) == expected
+
+
+def test_default_cache_dir_is_fixed_inside_checkout():
+    import os
+
+    assert runtime.DEFAULT_CACHE_DIR == os.path.join(runtime.REPO_ROOT,
+                                                     ".jax_cache")
+
+
+def test_enable_compile_cache_keeps_env_dir(monkeypatch):
+    import jax
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/from/env")
+    runtime.enable_compile_cache()
+    assert jax.config.jax_compilation_cache_dir == before

@@ -1,4 +1,5 @@
-"""Engine-level smoke tests on the CPU backend (xla oracle tracker)."""
+"""Engine-level smoke tests on the CPU backend (the production segmented
+path, the same program the GPU runs)."""
 
 import dataclasses
 
@@ -42,20 +43,16 @@ def test_run_stream_matches_run_round(engine):
 
 
 @pytest.mark.slow
-def test_stream_abort_matches_round_abort(cfg, monkeypatch):
+def test_stream_abort_matches_round_abort(cfg):
     """Chunked abort stream (engine._run_stream_abort) vs run_round abort.
 
-    Interpret-mode segmented engine (the abort pipeline needs the
-    segmented kernel driver; TPUHC_FORCE_INTERPRET=1 keeps it on the CPU
-    backend).  Part A: a step budget too small for any hit, so both modes
+    Part A: a step budget too small for any hit, so both modes
     dispatch EVERY chunk -- the stream's per-chunk device-select sums must
     equal the round pipeline's whole-batch statistics.  Part B: relaxed
     candidate gates (ratio 0 + huge imag tol, the test_parallel abort
     trick) so a mid-stream chunk hits -- the scheduler must report the
     found pose and skip the view's remaining chunks.
     """
-    monkeypatch.setenv("TPUHC_FORCE_INTERPRET", "1")
-
     # Part A: no hit possible in 16 steps; full chunk sweep both modes.
     ecfg = dataclasses.replace(
         cfg,
@@ -64,7 +61,6 @@ def test_stream_abort_matches_round_abort(cfg, monkeypatch):
                                    abort_chunk=2, stream_abort_chunk=2),
     )
     eng = TrifocalPoseEngine(ecfg)
-    assert eng._segmented
     view = eng.load_view(0)
     rr = eng.run_round(view, seed=0, num_hypotheses=4)
     results, vps = eng.run_stream([0], num_hypotheses=4)
@@ -122,18 +118,14 @@ def test_ef_matrix_utilities(cfg):
         data_io,
         evaluation as evl,
     )
-    from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
-        ransac_data_dir,
-    )
 
     t = np.array([1.0, -2.0, 3.0])
     sk = np.asarray(tfm.skew_symmetric(jnp.asarray(t)))
     v = np.array([0.5, 0.25, -1.0])
     np.testing.assert_allclose(sk @ v, np.cross(t, v), atol=1e-6)
 
-    d = ransac_data_dir(cfg)
-    view = data_io.load_ransac_view(d, 0)
-    k = data_io.load_intrinsic_matrix(d)
+    view = data_io.load_view(cfg, 0)
+    k = data_io.load_intrinsics(cfg)
     r21, t21 = evl.decompose_gt_pose(view.gt_pose21)
     f = np.asarray(
         tfm.fundamental_matrix(jnp.asarray(r21), jnp.asarray(t21),
@@ -159,7 +151,7 @@ def test_device_scoring_matches_host_scoring(cfg):
     )
 
     base = dataclasses.replace(
-        cfg, hc=dataclasses.replace(cfg.hc, max_steps=25, backend="xla")
+        cfg, hc=dataclasses.replace(cfg.hc, max_steps=25)
     )
     eng = TrifocalPoseEngine(base)
     view = eng.load_view(0)

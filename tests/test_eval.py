@@ -2,7 +2,7 @@
 
 Validates the decoded index-table semantics against mathematical ground truth:
 H(start_sols, t=0) = 0 (the start system is solved by the start solutions),
-Hx = dH/dx and -Ht = -dH/dt via jax autodiff, and the factored (MXU) evaluator
+Hx = dH/dx and -Ht = -dH/dt via jax autodiff, and the factored (matmul) evaluator
 against the direct (oracle) one.
 """
 
@@ -99,62 +99,14 @@ def test_factored_matches_direct(problem, rng):
 
 def test_factored_structure_counts(problem):
     f = problem.factored
-    # Structure facts measured from the reference tables (SURVEY.md 2.2-D2).
+    # 170 / 47 / 115 equal the reference tables' structure (SURVEY.md
+    # 2.2-D2).  The generated formulation (models/system.py) needs 34
+    # parameter pairs and 258 (pair, quad) combos where the reference's
+    # Julia-generated tables listed 38 and 288.  These two counts only size
+    # the evaluator's constant matrices; the 312 distinct start roots
+    # (tests/test_system.py) are the check that the system is the same.
     assert f.hx_C.shape[1] == 170  # nonzero Hx entries of 900
     assert len(f.qm_a) == 47       # distinct quadratic monomials
     assert len(f.cm_a) == 115      # distinct cubic monomials
-    assert len(f.pp_a) == 38       # distinct parameter pairs
-    assert f.hx_C.shape[0] == 288  # distinct (pair, quad) combos
-
-
-def test_efg_pair_basis_endpoint_exact(problem, rng):
-    """pair_coef_basis="efg" (HCConfig): the hoisted two-point quadratic
-    P = t^2 E + t(1-t) F + (1-t)^2 G, evaluated with the per-lane basis
-    rows (t^2, tv, v^2), must reproduce the TARGET pair products
-    BIT-EXACTLY at t = 1 and the START pair products at t = 0 -- the
-    endpoint-exactness that removed the kernel's ~1e-4 imaginary-residue
-    floor (README reconciliation section).  The legacy "abc" basis has
-    no such guarantee (its error is absolute in the coefficient scale).
-    """
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import fused
-
-    f = problem.factored
-    pa, pb = np.asarray(f.pp_a), np.asarray(f.pp_b)
-    B = 5
-    tgt = (rng.standard_normal((B, len(problem.start_params)))
-           + 1j * rng.standard_normal((B, len(problem.start_params)))
-           ).astype(np.complex64)
-    diff = (tgt - problem.start_params).astype(np.complex64)
-    er, ei, fr, fi, gr, gi = [np.asarray(a) for a in fused.build_pair_coefs(
-        problem, diff.real, diff.imag, B, tgt.real, tgt.imag,
-        basis="efg", dynamic_start=False,
-    )]
-
-    def fill(t):
-        t = np.float32(t)
-        v = np.float32(1.0) - t
-        tt, tv, vv = t * t, t * v, v * v
-        return (tt * er + (tv * fr + vv * gr),
-                tt * ei + (tv * fi + vv * gi))
-
-    # (a) The fill at the endpoints returns the STORED coefficient planes
-    # bit-exactly: the basis rows (t^2, tv, v^2) are exactly (1, 0, 0) at
-    # t = 1 and (0, 0, 1) at t = 0.
-    pr1, pi1 = fill(1.0)
-    np.testing.assert_array_equal(pr1, er)
-    np.testing.assert_array_equal(pi1, ei)
-    pr0, pi0 = fill(0.0)
-    np.testing.assert_array_equal(pr0, gr)
-    np.testing.assert_array_equal(pi0, gi)
-    # (b) The stored E/G are single-rounded f32 products of exact data
-    # (XLA-vs-numpy differ only in mul-add fusion, ~1 ulp).
-    e_tgt = tgt[:, pa] * tgt[:, pb]
-    np.testing.assert_allclose(pr1.T, e_tgt.real, rtol=0, atol=2e-6)
-    np.testing.assert_allclose(pi1.T, e_tgt.imag, rtol=0, atol=2e-6)
-    s = np.asarray(problem.start_params)
-    e_s = (s[pa] * s[pb]).astype(np.complex64)
-    np.testing.assert_allclose(
-        pr0.T, np.broadcast_to(e_s.real, pr0.T.shape), rtol=0, atol=2e-6)
+    assert len(f.pp_a) == 34       # distinct parameter pairs
+    assert f.hx_C.shape[0] == 258  # distinct (pair, quad) combos

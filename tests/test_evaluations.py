@@ -10,6 +10,7 @@ import pytest
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.engine import (
     TrifocalPoseEngine,
 )
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import system
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import tracker
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
     evaluation as evl,
@@ -19,17 +20,10 @@ from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
 )
 
 
-def _cayley_from_rotation(r: np.ndarray) -> np.ndarray:
-    """Inverse Cayley map: S = (R - I)(R + I)^-1, c = vee(S)
-    (inverse of util.hpp:31-67's quadratic Cayley form)."""
-    s = (r - np.eye(3)) @ np.linalg.inv(r + np.eye(3))
-    return np.array([s[2, 1], s[0, 2], s[1, 0]], np.float64)
-
-
 @pytest.fixture(scope="module")
 def engine(cfg):
     small = dataclasses.replace(
-        cfg, hc=dataclasses.replace(cfg.hc, max_steps=5, backend="xla")
+        cfg, hc=dataclasses.replace(cfg.hc, max_steps=5)
     )
     return TrifocalPoseEngine(small)
 
@@ -53,8 +47,8 @@ def test_score_round_uncapped_candidates(engine):
     r31, t31u = evl.decompose_gt_pose(view.gt_pose31)
     x[gt_i, 18:21] = view.gt_pose21[:, 3]
     x[gt_i, 21:24] = view.gt_pose31[:, 3]
-    x[gt_i, 24:27] = _cayley_from_rotation(r21)
-    x[gt_i, 27:30] = _cayley_from_rotation(r31)
+    x[gt_i, 24:27] = system.rotation_to_cayley(r21)
+    x[gt_i, 27:30] = system.rotation_to_cayley(r31)
     res = tracker.TrackResult(
         x=x,
         converged=np.ones(B, bool),

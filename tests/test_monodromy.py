@@ -1,22 +1,28 @@
 """Monodromy start-system generation (D4 equivalent) on the CPU oracle."""
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import monodromy
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import (
+    monodromy,
+    system,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import tracker
 
 
 def test_refiner_polishes_shipped_roots(problem, cfg):
-    refine = monodromy.make_refiner(problem, batch=32)
-    x = np.asarray(problem.start_sols)[:16]
-    xr, res = refine(x, np.asarray(problem.start_params))
-    # Shipped roots are true roots: residuals tiny, polish is a no-op.
-    assert res.max() < 1e-3
-    assert np.abs(xr - x).max() < 1e-2
+    """Newton polish (complex128) pulls perturbed committed roots back onto
+    the roots, which is what lets monodromy landings deduplicate."""
+    x = np.asarray(problem.start_sols, np.complex128)[:16]
+    rng = np.random.default_rng(0)
+    noisy = x + 1e-6 * np.abs(x).max(axis=1, keepdims=True) * (
+        rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    xr, res = system.newton_polish(problem.hx_table, problem.ht_table, noisy,
+                                   np.asarray(problem.start_params))
+    assert res.max() < monodromy.RESIDUAL_TOL
+    np.testing.assert_allclose(xr, x, rtol=1e-6, atol=1e-8)
 
 
 def test_write_start_system_roundtrip(problem, tmp_path):
@@ -44,12 +50,12 @@ def test_write_start_system_roundtrip(problem, tmp_path):
 
 @pytest.mark.slow
 def test_monodromy_discovers_new_roots(problem, cfg):
-    hc = dataclasses.replace(cfg.hc, truncate_paths=False)
+    hc = dataclasses.replace(cfg.hc, truncate_paths=False, max_steps=200)
     track = tracker.make_track_fn(problem, hc, dynamic_start=True)
     seed = np.asarray(problem.start_sols)[:24]
     res = monodromy.monodromy_solve(
-        problem, hc, seed_sols=seed, target_count=30, max_loops=3,
-        patience=3, rng_seed=2, track_fn=track, leg_batch=32,
+        problem, track, seed, target_count=30, max_loops=3,
+        patience=3, rng_seed=2, leg_batch=32,
     )
     assert res.solutions.shape[0] > 24, res.history
     # Every discovered root must be a true root of the shipped start set.

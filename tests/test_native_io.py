@@ -2,20 +2,23 @@
 
 import numpy as np
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import native
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
-    EngineConfig,
-    ransac_data_dir,
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
+    data_io,
+    native,
 )
 
 
-def test_parse_floats_matches_numpy(cfg):
-    import os
-
-    p = os.path.join(
-        ransac_data_dir(cfg), "Triplet_Edgels", "Triplet_Edgels_000.txt"
-    )
-    a = native.parse_floats(p)
+def test_parse_floats_matches_numpy(cfg, tmp_path):
+    """A view triplet written in the reference's Triplet_Edgels format
+    (x y tx ty per view, 12 floats a line) parses exactly as numpy does."""
+    view = data_io.load_view(cfg, 0)
+    rows = np.concatenate(
+        [np.concatenate([view.edge_locations[:, 2 * v:2 * v + 2],
+                         view.edge_tangents[:, 2 * v:2 * v + 2]], axis=1)
+         for v in range(3)], axis=1)
+    p = tmp_path / "Triplet_Edgels_000.txt"
+    np.savetxt(p, rows, fmt="%.9g")
+    a = native.parse_floats(str(p))
     b = np.loadtxt(p).reshape(-1)
     np.testing.assert_allclose(a, b, rtol=0, atol=0)
 

@@ -9,12 +9,11 @@ establish the best support ANY sampled hypothesis can reach -- separating
 acceptance rule on this data" (definitions.hpp:18).
 
 Also records the wall-clock-to-accepted-pose distribution over all views
-(the reference's serving metric: its committed sample runs one full round
-in 149.575 ms, /root/reference/Output_Write_Files/GPU_Timings.txt:1) --
-both the first-attempt round time and the cumulative time across retries
-until a pose is accepted.
+(the reference's serving metric; its committed sample runs one full round
+in 149.575 ms, BASELINE.md) -- both the first-attempt round time and the
+cumulative time across retries until a pose is accepted.
 
-Usage: python tools/accuracy_sweep.py [--views 100] [--hypotheses 100]
+Usage: PYTHONPATH=. python tools/accuracy_sweep.py [--views 100] [--hypotheses 100]
            [--retries 4] [--exhaustive 2000]
 """
 

@@ -11,7 +11,10 @@ the files read as [converged, real, infinity]):
   GPU_Sols_Statistics.txt: 272 / 5 / 495      (TrunPaths GPU kernel)
   CPU_Sols_Statistics.txt: 11098 / 521 / 6577 (CPU solver, NO TrunPaths)
 
-Run with no args on TPU (fused kernel) or --platform cpu (oracle tracker).
+Needs the reference's data tree (--data-root): the comparison targets are
+its committed outputs on its own dataset.
+
+Usage: PYTHONPATH=. python tools/reconcile_stats.py --data-root DIR [--platform cpu]
 """
 
 import argparse
@@ -23,6 +26,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--platform", default=None, choices=[None, "cpu"])
+    ap.add_argument("--data-root", required=True,
+                    help="reference-layout tree (problems/, RANSAC_Data/)")
     ap.add_argument("--hypotheses", type=int, default=100)
     args = ap.parse_args()
     if args.platform == "cpu":
@@ -43,7 +48,7 @@ def main():
 
     H = args.hypotheses
     for trun in (False, True):
-        cfg = EngineConfig()
+        cfg = EngineConfig(data_root=args.data_root)
         cfg = dataclasses.replace(
             cfg, hc=dataclasses.replace(cfg.hc, truncate_paths=trun)
         )
@@ -58,10 +63,7 @@ def main():
         tgt_b = np.repeat(tgt, T, axis=0)
         diff_b = tgt_b - eng.problem.start_params
         x0 = np.tile(np.asarray(eng.problem.start_sols), (H, 1))
-        if getattr(eng, "_segmented", False):
-            res = eng.track(x0, tgt_b, diff_b).track
-        else:
-            res = eng.track(x0, tgt_b, diff_b)
+        res = eng.track(x0, tgt_b, diff_b).track
         stats = evl.collect_stats(
             res.x, res.converged, res.inf_fail, cfg.ransac
         )
@@ -82,12 +84,8 @@ def main():
         tols = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2)
         counts = {t: int((conv & (mi <= t)).sum()) for t in tols}
         print(f"  real-count by imag tol: {counts}")
-        # Explicit numpy bool conversion: `conv` arrives as a device
-        # array on the TPU path, and fancy-indexing a numpy array with
-        # it printed all-nan percentiles in campaigns 12/13 while the
-        # tol counts (pure elementwise) were fine.  A handful of
-        # converged-flag paths also hold non-finite coordinates
-        # (diverged then t-converged lanes) -- drop them and say so.
+        # A handful of converged-flag paths hold non-finite coordinates
+        # (diverged then t-converged paths) -- drop them and say so.
         vals = mi[conv]
         finite = vals[np.isfinite(vals)]
         if finite.size:

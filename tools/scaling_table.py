@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Hypotheses/s vs device count on the hypothesis mesh.
 
-On a real multi-chip TPU slice this measures ICI-backed scaling of the
-production sharded tracker; on a single-chip/virtual-CPU environment
-(JAX_PLATFORMS=cpu + --xla_force_host_platform_device_count=N) it
-demonstrates functional scaling of the same program (virtual devices share
-host cores, so wall-clock speedups are bounded by the core count).
+On several GPUs this measures the scaling of the production sharded
+tracker; on virtual CPU devices (JAX_PLATFORMS=cpu +
+--xla_force_host_platform_device_count=N) it demonstrates functional
+scaling of the same program (virtual devices share host cores, so
+wall-clock speedups are bounded by the core count).
 
 Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-           python tools/scaling_table.py [--hypotheses 16] [--steps 20]
+           PYTHONPATH=. python tools/scaling_table.py [--hypotheses 16] [--steps 20]
 """
 
 import argparse
@@ -38,13 +38,12 @@ def main():
     from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import data_io
     from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
         EngineConfig,
-        ransac_data_dir,
     )
 
     cfg = EngineConfig()
     hc = dataclasses.replace(cfg.hc, max_steps=args.steps)
     problem = TrifocalProblem.load(cfg)
-    view = data_io.load_ransac_view(ransac_data_dir(cfg), 0)
+    view = data_io.load_view(cfg, 0)
     H, T = args.hypotheses, args.tracks
     samples = ransac.sample_edgel_triplets(0, view.edge_locations.shape[0], H)
     tgt = ransac.build_target_params(
@@ -58,18 +57,18 @@ def main():
         x0.real.astype(f32), x0.imag.astype(f32),
         tgt_b.real.astype(f32), tgt_b.imag.astype(f32),
         diff_b.real.astype(f32), diff_b.imag.astype(f32),
+        np.full((8, 6), 1e3, f32), np.eye(3, dtype=f32), f32(8),
     )
 
     n_all = len(jax.devices())
-    backend = "xla" if jax.default_backend() == "cpu" else "fused"
-    print(f"# backend={backend}, {H} hypotheses x {T} tracks x "
+    print(f"# {H} hypotheses x {T} tracks x "
           f"{args.steps} steps, platform={jax.default_backend()}")
     print(f"{'devices':>8} {'time_ms':>10} {'hyp/s':>10} {'speedup':>8}")
     base = None
     nd = 1
     while nd <= n_all and H % nd == 0:
         m = pmesh.make_mesh(nd)
-        track = pmesh.make_sharded_track_fn(problem, hc, m, backend=backend)
+        track = pmesh.make_sharded_track_fn(problem, hc, m)
         out = track.jitted(*planes)
         np.asarray(out[2])  # compile + sync
         times = []

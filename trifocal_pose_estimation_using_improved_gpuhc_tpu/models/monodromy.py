@@ -3,27 +3,40 @@
 The reference regenerates its start system offline with Julia's
 HomotopyContinuation.jl ``monodromy_solve``
 (problems/trifocal_2op1p_30x30/trifocal_2op1p_30x30_monodromySolve.jl:1-94).
-This module is the native equivalent: given a seed parameter point p0 with a
+This module is the native equivalent: given a parameter point p0 with a
 (possibly partial) set of known solutions, it discovers the remaining
 solutions of the 312-path trifocal system by tracking monodromy loops
-p0 -> p1 -> p2 -> p0 through random complex parameter points with the
-production HC tracker (ops/fused.py, ``dynamic_start=True``).  Solutions
-permute around each loop; landing points that are not already known are new
-roots.  The loop repeats until the solution count closes (no growth for
+p0 -> p1 -> p2 -> p0 through random complex parameter points with the plain
+HC tracker (ops/tracker.py, ``dynamic_start=True``).  Solutions permute
+around each loop; landing points that are not already known are new roots.
+The loop repeats until the solution count closes (no growth for
 ``patience`` consecutive loops) or ``target_count`` is reached.
 
-This closes the data-plane loop: the framework can regenerate
-``start_sols.txt`` / ``start_params.txt`` (D4 in SURVEY.md section 2.2)
-rather than only consuming the shipped files.
+``main`` builds the committed start system from a seed alone:
+
+1. draw a real view triplet (utils/synthcurves.py) and take the exact root
+   of one sampled triplet from its ground-truth pose
+   (models/system.root_from_view);
+2. track that root to a random complex parameter point p0;
+3. grow the root set from that one root by monodromy, Newton-polishing
+   every landing point in complex128 (models/system.newton_polish) and
+   dropping the landings where a Cayley matrix loses rank
+   (models/system.is_degenerate): they solve the polynomial system but
+   are no pose, and the trifocal problem's 312 roots are the others.
+
+    python -m trifocal_pose_estimation_using_improved_gpuhc_tpu.models.monodromy \\
+        --rng-seed 0
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
 
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import system
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.models.trifocal import (
     TrifocalProblem,
 )
@@ -31,62 +44,18 @@ from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
     HCConfig,
 )
 
+# Largest max|H| at p0 accepted for a polished root (complex128 Newton
+# reaches ~1e-12 on true roots; end-zone error of unconverged landings
+# stays far above).
+RESIDUAL_TOL = 1e-8
+
 
 @dataclasses.dataclass
 class MonodromyResult:
-    params: np.ndarray      # (P+1,) complex64 seed parameter point
-    solutions: np.ndarray   # (N, V) complex64 distinct roots at params
+    params: np.ndarray      # (P+1,) complex parameter point
+    solutions: np.ndarray   # (N, V) complex128 distinct roots at params
     loops_run: int
     history: list           # solution count after each loop
-
-
-def make_refiner(problem: TrifocalProblem, batch: int, iters: int = 3):
-    """Newton-polish roots at a fixed parameter point (plain XLA, planes).
-
-    Returns refine(x (B,V) complex64, params (P+1,)) -> (x_refined,
-    residual_inf (B,)).  Keeps monodromy landing points honest: tracked
-    roots carry end-zone error, and duplicates only collapse under the
-    dedup tolerance once polished.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
-        eval as ev,
-        linalg,
-    )
-
-    @jax.jit
-    def _refine(xr, xi, pr, pi):
-        x = jax.lax.complex(xr, xi)
-        p = jnp.broadcast_to(jax.lax.complex(pr, pi), x.shape[:1] + pr.shape)
-        for _ in range(iters):
-            hx, h, _ = ev.eval_all_factored(
-                problem, x, p, p, need_h=True, need_ht=False
-            )
-            x = x - linalg.solve_batched(hx, h)
-        _, h, _ = ev.eval_all_factored(
-            problem, x, p, p, need_h=True, need_ht=False
-        )
-        res = jnp.max(jnp.abs(jnp.real(h)) + jnp.abs(jnp.imag(h)), axis=1)
-        return jnp.real(x), jnp.imag(x), res
-
-    def refine(x: np.ndarray, params: np.ndarray):
-        B = x.shape[0]
-        Bp = -(-B // batch) * batch
-        if Bp != B:
-            x = np.concatenate(
-                [x, np.broadcast_to(x[:1], (Bp - B,) + x.shape[1:])]
-            )
-        f32 = np.float32
-        xr, xi, res = _refine(
-            x.real.astype(f32), x.imag.astype(f32),
-            params.real.astype(f32), params.imag.astype(f32),
-        )
-        out = np.asarray(xr) + 1j * np.asarray(xi)
-        return out[:B].astype(np.complex64), np.asarray(res)[:B]
-
-    return refine
 
 
 def _dedup(sols: np.ndarray, new: np.ndarray, tol: float) -> np.ndarray:
@@ -107,52 +76,31 @@ def _dedup(sols: np.ndarray, new: np.ndarray, tol: float) -> np.ndarray:
 
 def monodromy_solve(
     problem: TrifocalProblem,
-    cfg: HCConfig,
-    seed_sols: Optional[np.ndarray] = None,
+    track_fn,
+    seed_sols: np.ndarray,
     target_count: Optional[int] = None,
     max_loops: int = 30,
     patience: int = 3,
     rng_seed: int = 0,
-    dedup_tol: float = 1e-3,
+    dedup_tol: float = 1e-6,
     perturb_scale: float = 1.0,
-    track_fn=None,
-    interpret: bool = False,
     leg_batch: Optional[int] = None,
 ) -> MonodromyResult:
     """Grow a solution set at the problem's start parameters via monodromy.
 
-    seed_sols: initial known roots at problem.start_params (defaults to the
-    shipped start solutions -- pass a subset to exercise real discovery).
-    track_fn: a ``track(x0, tgt, diff)`` built with ``dynamic_start=True``
-    (defaults to the fused tracker; pass the oracle for CPU tests).
+    seed_sols: known roots at problem.start_params.  track_fn: a
+    ``track(x0, tgt, diff)`` built with ``dynamic_start=True`` and
+    truncate_paths off (ops/tracker.make_track_fn).
     """
-    p0 = np.asarray(problem.start_params).astype(np.complex64)
+    p0 = np.asarray(problem.start_params).astype(np.complex128)
     npar = p0.shape[0] - 1  # last slot is the constant 1
-    if seed_sols is None:
-        seed_sols = np.asarray(problem.start_sols)
-    sols = np.asarray(seed_sols, np.complex64).copy()
+    sols = np.asarray(seed_sols, np.complex128).copy()
     if target_count is None:
         target_count = problem.num_tracks
-
-    if track_fn is None:
-        from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
-            fused,
-        )
-
-        # Depth-sign pruning is a RANSAC heuristic (real geometry); at
-        # random complex parameter points every root is complex, so
-        # monodromy legs must track untruncated.
-        cfg = dataclasses.replace(cfg, truncate_paths=False)
-        track_fn = fused.make_track_fn(
-            problem, cfg, interpret=interpret, dynamic_start=True
-        )
-
     rng = np.random.default_rng(rng_seed)
     history = []
     stagnant = 0
     loops = 0
-    refiner = None
-    residual_tol = 1e-3
 
     # Fixed leg batch size: one compiled program serves every loop even as
     # the solution set grows (pad by repeating the first root).
@@ -168,18 +116,18 @@ def monodromy_solve(
             )
         tgt = np.broadcast_to(p_to, (Bp, p0.shape[0])).astype(np.complex64)
         diff = (p_to - p_from)[None].repeat(Bp, axis=0).astype(np.complex64)
-        res = track_fn(x_from, tgt, diff)
+        res = track_fn(x_from.astype(np.complex64), tgt, diff)
         return res.x[:B], res.converged[:B]
 
     for loops in range(1, max_loops + 1):
         # Random complex waypoints around the seed point (the monodromy
-        # group acts transitively on the 312 trifocal roots).
+        # group acts transitively on the trifocal roots).
         way = []
         for _ in range(2):
             z = p0.copy()
             z[:npar] = z[:npar] + perturb_scale * (
                 rng.standard_normal(npar) + 1j * rng.standard_normal(npar)
-            ).astype(np.complex64)
+            )
             way.append(z)
 
         x, ok = leg(sols, p0, way[0])
@@ -188,20 +136,21 @@ def monodromy_solve(
         good = ok & ok2 & ok3
         # Newton-polish the landing points at p0 and accept only true
         # roots; unpolished end-zone error defeats duplicate detection.
-        if refiner is None:
-            refiner = make_refiner(problem, batch=leg_batch)
-        cand, res = refiner(x[good], p0)
-        cand = cand[res < residual_tol]
+        cand, res = system.newton_polish(
+            problem.hx_table, problem.ht_table, x[good], p0
+        )
+        cand = cand[(res < RESIDUAL_TOL) & ~system.is_degenerate(cand)]
         before = sols.shape[0]
         sols = _dedup(sols, cand, dedup_tol)
         history.append(int(sols.shape[0]))
-        if sols.shape[0] == before:
-            stagnant += 1
-        else:
-            stagnant = 0
+        print(f"monodromy loop {loops}: {sols.shape[0]} roots", flush=True)
+        stagnant = stagnant + 1 if sols.shape[0] == before else 0
         if sols.shape[0] >= target_count or stagnant >= patience:
             break
 
+    # A canonical order, so a rebuild that finds the same roots writes the
+    # same files.
+    sols = sols[np.lexsort((sols[:, 0].imag, sols[:, 0].real))]
     return MonodromyResult(
         params=p0, solutions=sols, loops_run=loops, history=history
     )
@@ -222,45 +171,86 @@ def write_start_system(
                 f.write(f"{z.real:.17g}\t{z.imag:.17g}\n")
 
 
+def seed_root(rng_seed: int):
+    """A real parameter point (P+1,) and its exact root (V,), from a seed."""
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import ransac
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
+        synthcurves,
+    )
+
+    view = synthcurves.generate_view(0, seed=rng_seed, outlier_ratio=0.0)
+    sample = ransac.sample_edgel_triplets(
+        rng_seed, view.edge_locations.shape[0], 1
+    )
+    params = ransac.build_target_params(
+        view.edge_locations, view.edge_tangents, sample
+    )[0].astype(np.complex128)
+    poses = [(p[:, :3].astype(np.float64), p[:, 3].astype(np.float64))
+             for p in (view.gt_pose21, view.gt_pose31)]
+    return params, system.root_from_view(params.real, poses)
+
+
+def generate_start_system(rng_seed: int = 0, num_roots: int = 312,
+                          max_loops: int = 60):
+    """Build the start system: (hx_table, ht_table, MonodromyResult)."""
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import tracker
+
+    hx, ht = system.build_tables()
+    p_real, x_real = seed_root(rng_seed)
+    rng = np.random.default_rng(rng_seed)
+    npar = p_real.shape[0] - 1
+    p0 = np.ones(npar + 1, np.complex128)
+    p0[:npar] = (rng.standard_normal(npar)
+                 + 1j * rng.standard_normal(npar)) / np.sqrt(2)
+
+    problem = TrifocalProblem.from_arrays(
+        p0[:npar].astype(np.complex64), np.zeros((num_roots, 30)), hx, ht
+    )
+    # Random complex legs: every root is complex, so depth-sign pruning
+    # (a real-geometry heuristic) stays off; generous step budget.
+    hc = HCConfig(truncate_paths=False, max_steps=400)
+    track = tracker.make_track_fn(problem, hc, dynamic_start=True)
+    x = np.broadcast_to(x_real.astype(np.complex64), (8, 30))
+    res = track(x, np.broadcast_to(p0, (8, npar + 1)).astype(np.complex64),
+                np.broadcast_to(p0 - p_real, (8, npar + 1)).astype(np.complex64))
+    if not res.converged[0]:
+        raise RuntimeError("seed root did not reach p0; try another seed")
+    root, resid = system.newton_polish(hx, ht, res.x[:1], p0)
+    if resid[0] >= RESIDUAL_TOL:
+        raise RuntimeError(f"seed root residual {resid[0]:.3g} at p0")
+    result = monodromy_solve(
+        problem, track, root, target_count=num_roots, max_loops=max_loops,
+        patience=6, rng_seed=rng_seed + 1,
+    )
+    return hx, ht, result
+
+
 def main(argv=None) -> int:
-    """Regenerate the start system: python -m ...models.monodromy [--seeds N]."""
+    """Regenerate the committed start system and index tables."""
     import argparse
 
     from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (
-        EngineConfig,
+        PACKAGE_PROBLEMS_DIR,
     )
 
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--seeds", type=int, default=None,
-                    help="use only the first N shipped roots as seeds "
-                         "(default: all -- verifies closure)")
-    ap.add_argument("--max-loops", type=int, default=30)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rng-seed", type=int, default=0)
-    ap.add_argument("--out-dir", default=None,
-                    help="write start_params.txt / start_sols.txt here")
+    ap.add_argument("--max-loops", type=int, default=60)
+    ap.add_argument("--out-dir", default=os.path.join(
+        PACKAGE_PROBLEMS_DIR, "trifocal_2op1p_30x30"))
     args = ap.parse_args(argv)
 
-    cfg = EngineConfig()
-    problem = TrifocalProblem.load(cfg)
-    seeds = None
-    if args.seeds is not None:
-        seeds = np.asarray(problem.start_sols)[: args.seeds]
-    res = monodromy_solve(
-        problem, cfg.hc, seed_sols=seeds, max_loops=args.max_loops,
-        rng_seed=args.rng_seed,
-    )
+    hx, ht, res = generate_start_system(args.rng_seed, max_loops=args.max_loops)
     print(f"monodromy: {res.loops_run} loops, growth {res.history}")
-    print(f"solutions: {res.solutions.shape[0]} / {problem.num_tracks}")
-    if args.out_dir:
-        import os
-
-        os.makedirs(args.out_dir, exist_ok=True)
-        write_start_system(
-            os.path.join(args.out_dir, "start_params.txt"),
-            os.path.join(args.out_dir, "start_sols.txt"),
-            res,
-        )
-        print(f"wrote start system to {args.out_dir}")
+    print(f"solutions: {res.solutions.shape[0]}")
+    os.makedirs(args.out_dir, exist_ok=True)
+    system.write_tables(args.out_dir)
+    write_start_system(
+        os.path.join(args.out_dir, "start_params.txt"),
+        os.path.join(args.out_dir, "start_sols.txt"),
+        res,
+    )
+    print(f"wrote start system and tables to {args.out_dir}")
     return 0
 
 

@@ -7,8 +7,8 @@ Two implementations with identical semantics:
   as jnp gathers + einsum over the term axis. Used as the oracle and in tests.
 
 * ``eval_all_factored`` -- the production path: monomial-factored form (see
-  models/trifocal.py docstring) where the term contraction becomes two small
-  real matmuls on the MXU. Hx, H and -Ht share the monomial/parameter-product
+  models/trifocal.py docstring) where the term contraction becomes small
+  real matmuls. Hx, H and -Ht share the monomial/parameter-product
   vectors, so the three evaluations are fused into one call.
 
 Conventions (matching the reference):
@@ -99,8 +99,8 @@ def eval_Hx_direct(problem: TrifocalProblem, x: jnp.ndarray, p: jnp.ndarray) -> 
 
 def _complex_matmul_real(z: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     """(B, K) complex @ (K, N) real -> (B, N) complex, as two real matmuls."""
-    # HIGHEST: TPU f32 matmuls otherwise run in bf16 passes, which destroys
-    # the Newton corrector's 1e-6 relative tolerance.
+    # HIGHEST: a float32 matmul may otherwise run in TF32 on the GPU,
+    # which destroys the Newton corrector's 1e-6 relative tolerance.
     re = jnp.dot(jnp.real(z), c, precision=jax.lax.Precision.HIGHEST)
     im = jnp.dot(jnp.imag(z), c, precision=jax.lax.Precision.HIGHEST)
     return jax.lax.complex(re, im)

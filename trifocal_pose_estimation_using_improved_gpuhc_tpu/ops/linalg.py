@@ -1,70 +1,23 @@
 """Batched small complex linear solves, vectorised over the path batch.
 
-TPU-native replacement for MAGMA's warp-cooperative 30x30 complex LU
-(dev-cgesv-batched-small.cuh:38-107). The reference assigns one warp per
-matrix and keeps rows in registers; on TPU we instead keep the *batch* as the
-vector dimension and run Gaussian elimination with partial pivoting as masked
-elementwise updates over (B, N, N) -- every pivot search, row swap, and rank-1
-update is a full-lane VPU operation across all paths at once.
-
-Pivot metric matches the reference: |Re| + |Im| (dev-cgesv-batched-small.cuh:55).
-Zero pivots are replaced by 1 so dead/masked paths produce finite garbage
-instead of NaN (the caller masks results), mirroring the reference's
-zero_pivot handling (:66-68).
+Plain replacement for MAGMA's warp-cooperative 30x30 complex LU
+(dev-cgesv-batched-small.cuh:38-107), which keeps one matrix per warp with
+rows in registers: XLA's batched LU with partial pivoting, which on the GPU
+is the CUDA libraries' batched getrf/getrs and on the CPU LAPACK's.  Both
+pivot on |Re| + |Im| (icamax), the reference's metric
+(dev-cgesv-batched-small.cuh:55).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 
-def solve_batched(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+def solve(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve a[i] @ x[i] = b[i] for each batch element.
 
-    a: (B, N, N) complex64, b: (B, N) complex64 -> (B, N) complex64.
-    Partial-pivoted Gaussian elimination, fully vectorised over B.
+    a: (B, N, N), b: (B, N) -> (B, N).  A singular matrix gives inf/NaN
+    entries; the tracker rejects such a step like any failed corrector
+    (ops/tracker.py), so they never reach the path state.
     """
-    B, N, _ = a.shape
-    m = jnp.concatenate([a, b[..., None]], axis=-1)  # (B, N, N+1) augmented
-    rows = jnp.arange(N)
-
-    def elim_step(k, m):
-        col = jax.lax.dynamic_slice_in_dim(m, k, 1, axis=2)[..., 0]  # (B, N)
-        metric = jnp.abs(jnp.real(col)) + jnp.abs(jnp.imag(col))
-        metric = jnp.where(rows[None, :] >= k, metric, -1.0)
-        piv = jnp.argmax(metric, axis=1)  # (B,)
-
-        # Swap rows k and piv (one-hot based, handles piv == k).
-        row_k = jax.lax.dynamic_slice_in_dim(m, k, 1, axis=1)  # (B, 1, N+1)
-        row_p = jnp.take_along_axis(m, piv[:, None, None], axis=1)  # (B, 1, N+1)
-        is_k = (rows[None, :] == k)[..., None]          # (B broadcast, N, 1)
-        is_p = (rows[None, :] == piv[:, None])[..., None]
-        m = jnp.where(is_p, row_k, m)
-        m = jnp.where(is_k, row_p, m)
-
-        # Eliminate below the pivot.
-        pivot = jax.lax.dynamic_slice(m, (0, k, k), (B, 1, 1))  # (B, 1, 1)
-        safe = jnp.where(pivot == 0, jnp.ones_like(pivot), pivot)
-        col = jax.lax.dynamic_slice_in_dim(m, k, 1, axis=2)  # (B, N, 1)
-        factor = jnp.where(rows[None, :, None] > k, col / safe, 0.0)
-        pivot_row = jax.lax.dynamic_slice_in_dim(m, k, 1, axis=1)  # (B, 1, N+1)
-        return m - factor * pivot_row
-
-    m = jax.lax.fori_loop(0, N, elim_step, m)
-
-    # Back substitution on the upper-triangular system.
-    def back_step(i, x):
-        k = N - 1 - i
-        row = jax.lax.dynamic_slice_in_dim(m, k, 1, axis=1)[:, 0, :]  # (B, N+1)
-        diag = row[:, k]
-        safe = jnp.where(diag == 0, jnp.ones_like(diag), diag)
-        acc = row[:, N] - jnp.sum(row[:, :N] * x, axis=-1)
-        xk = acc / safe
-        return x.at[:, k].set(xk)
-
-    # x starts at zero; sum over already-solved entries is exact because
-    # unsolved entries are zero and row[k, :k] contributions were eliminated.
-    x = jnp.zeros((B, N), dtype=a.dtype)
-    x = jax.lax.fori_loop(0, N, back_step, x)
-    return x
+    return jnp.linalg.solve(a, b[..., None])[..., 0]

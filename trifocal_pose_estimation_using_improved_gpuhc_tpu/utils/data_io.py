@@ -127,3 +127,30 @@ def load_ransac_view(dataset_dir: str, view_index: int) -> RansacView:
 def num_ransac_views(dataset_dir: str) -> int:
     d = os.path.join(dataset_dir, "Triplet_Edgels")
     return len([f for f in os.listdir(d) if f.startswith("Triplet_Edgels_")])
+
+
+def load_view(cfg, view_index: int) -> RansacView:
+    """View triplet ``view_index`` of the configured dataset: the reference
+    tree under cfg.data_root, else the seeded synthetic dataset."""
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
+        config,
+        synthcurves,
+    )
+
+    d = config.ransac_data_dir(cfg)
+    if d is None:
+        return synthcurves.generate_view(view_index)
+    return load_ransac_view(d, view_index)
+
+
+def load_intrinsics(cfg) -> np.ndarray:
+    """The configured dataset's intrinsic matrix (3, 3) float32."""
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
+        config,
+        synthcurves,
+    )
+
+    d = config.ransac_data_dir(cfg)
+    if d is None:
+        return synthcurves.intrinsics()
+    return load_intrinsic_matrix(d)

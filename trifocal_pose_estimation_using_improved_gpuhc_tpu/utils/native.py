@@ -61,8 +61,8 @@ def _load():
                 # instead of silently falling back forever.
                 os.unlink(_SO)
                 raise
-            lib.tpuhc_parse_floats.restype = ctypes.c_long
-            lib.tpuhc_parse_floats.argtypes = [
+            lib.fastio_parse_floats.restype = ctypes.c_long
+            lib.fastio_parse_floats.argtypes = [
                 ctypes.c_char_p,
                 ctypes.POINTER(ctypes.c_double),
                 ctypes.c_long,
@@ -92,7 +92,7 @@ def parse_floats(path: str) -> np.ndarray:
         return np.array(out, np.float64)
     cap = max(os.path.getsize(path) // 2, 64)
     buf = np.empty(cap, np.float64)
-    n = lib.tpuhc_parse_floats(
+    n = lib.fastio_parse_floats(
         path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
         cap,
     )
@@ -101,7 +101,7 @@ def parse_floats(path: str) -> np.ndarray:
     if n < -1:
         cap = -n
         buf = np.empty(cap, np.float64)
-        n = lib.tpuhc_parse_floats(
+        n = lib.fastio_parse_floats(
             path.encode(),
             buf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             cap,
